@@ -16,15 +16,15 @@ Secondary metrics in the same JSON object:
 - rrtmg_columns_per_s: standalone full correlated-k LW+SW radiation
   throughput (BASELINE.json metric #2), 60-level columns.
 - secondary_heldsuarez_T42_gridpoint_steps_per_s: dry dynamical core.
-- modeled_scaling_efficiency_8chips: the m-sharded path's alpha-beta
-  estimate from tools/scaling_model.py (one real chip exists here; the
-  collective volumes are exact, the bandwidth assumption documented).
+- device: JAX's platform, device_kind and device count, and the card's
+  name and power limit from nvidia-smi.
 
 Cold-start wall time: the three programs (T85 moist scan, standalone
 radiation, Held-Suarez scan) are compiled CONCURRENTLY via AOT
 lower+compile in threads — XLA compilation releases the GIL — cutting
 cold bench time to roughly the longest single compile.  The persistent
-compilation cache (.jax_cache) makes repeat runs start in seconds.
+compilation cache (JAX_COMPILATION_CACHE_DIR, else .jax_cache) makes
+repeat runs start in seconds.
 
 The reference publishes no benchmark numbers (BASELINE.md); ``vs_baseline``
 is measured against a nominal 1e6 gridpoint-steps/s single-node figure for
@@ -41,15 +41,7 @@ import time
 NOMINAL_BASELINE = 1.0e6  # gridpoint-steps/s, nominal single-node reference
 
 
-def enable_compile_cache():
-    """Persistent XLA compilation cache under the repo."""
-    import jax
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             '.jax_cache')
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update('jax_compilation_cache_dir', cache_dir)
-    jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-    jax.config.update('jax_persistent_cache_min_entry_size_bytes', -1)
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def measure_compiled(compiled, carry, n_steps, gridpoints):
@@ -66,8 +58,16 @@ def measure_compiled(compiled, carry, n_steps, gridpoints):
     return carry, gridpoints * n_steps / elapsed
 
 
-def build_radiation_bench(nz=60, ncol=8192):
-    """Jitted standalone correlated-k LW+SW radiation closure."""
+def build_radiation_bench(nz=60, ncol=8192, dtype=None, use_tables=False,
+                          sweep=None):
+    """Jitted standalone correlated-k LW+SW radiation closure.
+
+    Returns (rad, inputs): ``rad(inputs)`` is jitted and returns LW and SW
+    up/down fluxes (W/m^2) and heating rates (K/day).  The columns are
+    arguments, not constants, so XLA cannot fold the radiation at compile
+    time.  The default is the production float32 fast path; ``use_tables``
+    and ``sweep`` are rrtmg_lw_fluxes' switches (float64 with
+    use_tables=True is the golden-parity path)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -75,7 +75,7 @@ def build_radiation_bench(nz=60, ncol=8192):
     from climt_tpu.components.rrtmg.sw_spectral import (
         rrtmg_sw_fluxes, solar_variability)
 
-    dtype = jnp.float32
+    dtype = jnp.float32 if dtype is None else dtype
     p_sfc = 1013.0
     plev1 = np.linspace(p_sfc, 0.3, nz + 1)
     play1 = 0.5 * (plev1[:-1] + plev1[1:])
@@ -87,48 +87,54 @@ def build_radiation_bench(nz=60, ncol=8192):
         return jnp.asarray(np.repeat(np.asarray(x)[:, None], ncol, 1),
                            dtype)
 
-    play, plev = cols(play1), cols(plev1)
-    tlay, tlev = cols(tlay1), cols(tlev1)
-    tsfc = jnp.full((ncol,), 300.0, dtype)
-    h2o = cols(0.016 * (play1 / p_sfc) ** 3)
-    o3 = cols(5e-6 * np.exp(-0.5 * ((np.log(play1) - np.log(20.0))
-                                    / 1.2) ** 2))
-    co2 = jnp.full_like(play, 355e-6)
-    o2 = jnp.full_like(play, 0.21)
-    zero = jnp.zeros_like(play)
-    emis = jnp.ones((16, ncol), dtype)
-    mu0 = jnp.full((ncol,), 0.6, dtype)
-    alb = jnp.full((ncol,), 0.2, dtype)
+    inputs = {
+        'play': cols(play1), 'plev': cols(plev1),
+        'tlay': cols(tlay1), 'tlev': cols(tlev1),
+        'tsfc': jnp.full((ncol,), 300.0, dtype),
+        'h2o': cols(0.016 * (play1 / p_sfc) ** 3),
+        'o3': cols(5e-6 * np.exp(-0.5 * ((np.log(play1) - np.log(20.0))
+                                         / 1.2) ** 2)),
+        'mu0': jnp.full((ncol,), 0.6, dtype),
+        'alb': jnp.full((ncol,), 0.2, dtype),
+    }
     solar_config = solar_variability(-1, 0.0)
-    nocloud = (jnp.zeros((nz, ncol, 14), dtype),) * 4
-    noaer = (jnp.zeros((nz, ncol, 14), dtype),) * 3
 
     @jax.jit
-    def rad():
+    def rad(x):
+        play, plev, alb = x['play'], x['plev'], x['alb']
+        co2 = jnp.full_like(play, 355e-6)
+        o2 = jnp.full_like(play, 0.21)
+        zero = jnp.zeros_like(play)
+        emis = jnp.ones((16, ncol), dtype)
+        nocloud = (jnp.zeros((nz, ncol, 14), dtype),) * 4
+        noaer = (jnp.zeros((nz, ncol, 14), dtype),) * 3
         lw = rrtmg_lw_fluxes(
-            play, plev, tlay, tlev, tsfc, h2o, o3, co2, zero, zero, o2,
-            zero, zero, zero, zero, emis, zero,
+            play, plev, x['tlay'], x['tlev'], x['tsfc'], x['h2o'], x['o3'],
+            co2, zero, zero, o2, zero, zero, zero, zero, emis, zero,
             jnp.zeros((nz, ncol, 16), dtype), zero, zero,
             jnp.full_like(play, 25.0), jnp.full_like(play, 10.0),
             jnp.zeros((nz, ncol, 16), dtype), 9.80665, 6.022140857e23,
-            1004.64, use_tables=False)
+            1004.64, use_tables=use_tables, sweep=sweep)
         sw = rrtmg_sw_fluxes(
-            play, plev, tlay, h2o, o3, co2, zero, zero, o2,
-            alb, alb, alb, alb, mu0, zero, nocloud, noaer,
+            play, plev, x['tlay'], x['h2o'], x['o3'], co2, zero, zero, o2,
+            alb, alb, alb, alb, x['mu0'], zero, nocloud, noaer,
             1.0, -1, 0.0, -1, solar_config,
-            9.80665, 6.022140857e23, 1004.64, icld=0, use_tables=False)
-        return lw[2] + sw[4]
+            9.80665, 6.022140857e23, 1004.64, icld=0,
+            use_tables=use_tables)
+        return {'lw_up': lw[0], 'lw_dn': lw[1], 'lw_hr': lw[2],
+                'sw_up': sw[0], 'sw_dn': sw[1], 'sw_hr': sw[4]}
 
-    return rad, ncol
+    return rad, inputs
 
 
-def measure_radiation_compiled(compiled, ncol, repeats=3):
+def measure_radiation_compiled(compiled, inputs, repeats=3):
     import jax
-    out = compiled()
+    ncol = inputs['tsfc'].shape[0]
+    out = compiled(inputs)
     jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(repeats):
-        out = compiled()
+        out = compiled(inputs)
     jax.block_until_ready(out)
     elapsed = (time.perf_counter() - t0) / repeats
     return ncol / elapsed
@@ -143,7 +149,10 @@ def _phase(msg, _t0=[None]):
 
 def main():
     _phase('start')
-    enable_compile_cache()
+    from climt_tpu.utils.compile_cache import enable_compile_cache
+    from climt_tpu.utils.device import card_line
+    card = card_line()               # before JAX touches the card
+    enable_compile_cache(REPO)
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -158,7 +167,7 @@ def main():
                             rad_col_chunk=8192)
     hs = build_held_suarez_model(nlon=128, nlat=64, nz=28,
                                  timestep=600.0, dtype=jnp.float32)
-    rad_fn, rad_ncol = build_radiation_bench()
+    rad_fn, rad_inputs = build_radiation_bench()
     _phase('models built')
     carry_m = moist[1]()
     carry_h = hs[1]()
@@ -182,7 +191,7 @@ def main():
             'moist', lambda: moist[3].lower(carry_m, moist_steps)
             .compile())),
         threading.Thread(target=compile_to, args=(
-            'rad', lambda: rad_fn.lower().compile())),
+            'rad', lambda: rad_fn.lower(rad_inputs).compile())),
         threading.Thread(target=compile_to, args=(
             'hs', lambda: hs[3].lower(carry_h, hs_steps).compile())),
     ]
@@ -205,24 +214,14 @@ def main():
             'vs_baseline': 0.0, 'error': 'NaN in output'}))
         sys.exit(1)
 
-    rad_rate = measure_radiation_compiled(compiled['rad'], rad_ncol)
+    rad_rate = measure_radiation_compiled(compiled['rad'], rad_inputs)
     _phase('radiation measured: {:.3g} col/s'.format(rad_rate))
 
     _, hs_rate = measure_compiled(compiled['hs'], carry_h, hs_steps,
                                   128 * 64 * 28)
     _phase('held-suarez measured: {:.3g} gps/s'.format(hs_rate))
 
-    # m-sharded scaling estimate from the measured single-chip step
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        'scaling_model', os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), 'tools',
-            'scaling_model.py'))
-    scaling = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(scaling)
-    step_s = nlon * nlat * nz / moist_rate
-    eff8 = scaling.model(8, step_s)[0]
-
+    dev = jax.devices()[0]
     print(json.dumps({
         'metric': 'moist_gcm_T85_gridpoint_steps_per_s',
         'value': round(moist_rate, 1),
@@ -232,7 +231,8 @@ def main():
         'rrtmg_columns_per_s': round(rad_rate, 1),
         'secondary_heldsuarez_T42_gridpoint_steps_per_s':
             round(hs_rate, 1),
-        'modeled_scaling_efficiency_8chips': round(eff8, 4),
+        'device': {'platform': dev.platform, 'kind': dev.device_kind,
+                   'count': len(jax.devices()), 'card': card},
     }))
 
 

@@ -1,8 +1,8 @@
-"""climt_tpu: a TPU-native Earth-system modeling framework.
+"""climt_tpu: an accelerator-native Earth-system modeling framework.
 
 Composable, units-aware model components (radiation, convection,
 condensation, boundary layer, surface, ice) built on JAX/XLA/Pallas, with a
-GFS-style spectral dynamical core sharded over TPU device meshes.
+GFS-style spectral dynamical core sharded over GPU device meshes.
 
 Provides the full capability surface of the reference CliMT/climt toolkit
 (see SURVEY.md at the repo root) with a compiled, SPMD-first execution model.

@@ -9,7 +9,7 @@ u, v, and three surface-exchange modes ('bulk' internal fluxes,
 coefficient uses the surface-layer Richardson number in its multiplier
 (the thesis Eqn 2.8 form, continuous at Ri_a = 0).
 
-TPU-native design: the reference's per-column numba loop (including its
+Vectorized design: the reference's per-column numba loop (including its
 early-exit boundary-layer-top search) becomes whole-grid jnp math — the
 first-exceedance search is an argmax over a boolean mask, and the four
 implicit diffusion solves are batched tridiagonal solves over every

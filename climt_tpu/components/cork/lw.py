@@ -8,7 +8,7 @@ Rosseland means).  The transport is the two-stream diffusivity
 approximation trans = exp(-D tau) with a configurable D
 (``diffusivity_factor``; Elsasser 1.66 default, the EC2213 notes use 2).
 
-TPU-native design: the reference's per-column numba sweeps become two
+Vectorized design: the reference's per-column numba sweeps become two
 ``lax.scan``s over levels carrying the full (nband, ngpt, ncol)
 radiance block; per-band and broadband fluxes accumulate as weighted
 g-sums inside the scan.

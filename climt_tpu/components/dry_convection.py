@@ -8,10 +8,10 @@ temperature theta_q exceeds the environment above, and mix specific humidity
 (mass-weighted mean) and enthalpy (redistributed along the dry adiabat with
 moisture-dependent Cp and R) over that slab.
 
-TPU-native design: the reference's per-column per-level nested Python loops
+Vectorized design: the reference's per-column per-level nested Python loops
 (:71-114) become a ``lax.fori_loop`` over levels carrying the (T, q) state of
 ALL columns at once; each iteration uses masked cumulative sums over the
-(small) level axis, so the work is O(nz^2) elementwise ops on the VPU with no
+(small) level axis, so the work is O(nz^2) elementwise ops with no
 data-dependent shapes.  The instability measure theta_q is evaluated from the
 *initial* profile (as the reference does), while mixing reads the running
 state.

@@ -11,7 +11,7 @@ buoyancy-sorted entrainment/detrainment matrix (mixing fractions s_ij),
 integrate the precipitating downdraft with rain/snow evaporation, and
 assemble tendencies with an exact enthalpy/momentum conservation fix.
 
-TPU-native design (SURVEY.md §2.3 hard part (b)): the reference's serial
+Vectorized design (SURVEY.md §2.3 hard part (b)): the reference's serial
 per-column loop with data-dependent levels (cloud base/top) becomes
 whole-grid fixed-shape computation — per-column integer levels (nk, icb,
 inb, ...) are carried as index arrays, level-dependent regions become
@@ -38,6 +38,7 @@ from ..core.base_components import ImplicitTendencyComponent, \
     timestep_seconds
 from ..core.constants import get_constant
 from ..core.util import bolton_q_sat
+from ..ops.precision import dot_precision
 
 _EPMAX = 0.999
 
@@ -646,21 +647,23 @@ def emanuel_convect(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
     W_amp = ((jj_[:, None, None] <= jj_[None, None, :])
              & (jj_[None, :, None] > jj_[None, None, :]))
     W_amp = jnp.asarray(W_amp.reshape(nz * nz, nz), dtype=ment.dtype)
-    amp1_ment = ment_cols.reshape(ncol, nz * nz) @ W_amp
+    amp1_ment = jnp.matmul(ment_cols.reshape(ncol, nz * nz), W_amp,
+                           precision=dot_precision('physics'))
     amp1 = amp1_m + amp1_ment
 
     # ad(i) = sum_{kk<=i-1} sum_{jrow=i..inb} ment[jrow, kk], via cumsums:
     # prefix over kk (strictly below i), mask jrow<=inb, suffix over jrow,
     # then read the diagonal (jrow = i)
     jrow = jnp.arange(nz)[None, :, None]
-    # one masked read of ment + a single (nz^2 x nz) matmul (MXU-friendly):
+    # one masked read of ment + a single (nz^2 x nz) matmul (one dense product):
     # ad[c,i] = sum_{j,k} ment_rows[c,j,k] * (j >= i) * (k < i)
     ment_rows = jnp.where(jrow <= inb[:, None, None], ment, 0.0)
     jj_ = np.arange(nz)
     W_ad = ((jj_[:, None, None] >= jj_[None, None, :])
             & (jj_[None, :, None] < jj_[None, None, :]))
     W_ad = jnp.asarray(W_ad.reshape(nz * nz, nz), dtype=ment.dtype)
-    ad = ment_rows.reshape(ncol, nz * nz) @ W_ad
+    ad = jnp.matmul(ment_rows.reshape(ncol, nz * nz), W_ad,
+                    precision=dot_precision('physics'))
 
     cfl = (2.0 * g * dpinv * amp1) >= delti
     T_up = jnp.concatenate([T[:, 1:], T[:, -1:]], axis=1)
@@ -710,7 +713,8 @@ def emanuel_convect(T, q, qs, u, v, p, ph, cbmf_in, dt, nl, params):
         dtype=ment.dtype)
     fq = fq + g * dpinv * (
         jnp.sum(ment * (qent - q[:, None, :]), axis=1)
-        - jnp.einsum('cki,ki->ci', ment * awat_col, jlt))
+        - jnp.einsum('cki,ki->ci', ment * awat_col, jlt,
+                     precision=dot_precision('physics')))
     fu = fu + g * dpinv * jnp.sum(ment * (uent - u[:, None, :]), axis=1)
     fv = fv + g * dpinv * jnp.sum(ment * (vent - v[:, None, :]), axis=1)
 

@@ -3,8 +3,7 @@
 Behavioral parity with /root/reference/climt/_components/held_suarez.py:5-174:
 Newtonian relaxation of temperature toward the analytic equilibrium
 Teq(lat, p) (:157-163) and Rayleigh damping of winds below sigma_b, with the
-standard HS94 coefficients as defaults.  Pure elementwise math — runs on the
-VPU, fully fused by XLA.
+standard HS94 coefficients as defaults.  Pure elementwise math, fully fused by XLA.
 """
 
 from __future__ import annotations

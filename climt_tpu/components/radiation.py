@@ -9,9 +9,9 @@ Behavioral parity with /root/reference/climt/_components/radiation.py:
   (1 - (f_l sigma + (1-f_l) sigma^4)), tau0 = tau0e + (tau0p - tau0e) sin^2(lat)
   (radiation.py:208-211).
 
-TPU-native design: the vertical sweeps are first-order linear recurrences
+Vectorized design: the vertical sweeps are first-order linear recurrences
 expressed as ``lax.scan`` over the (short) level axis with the full flattened
-column axis vectorized on the VPU; everything is jit-compatible and
+column axis vectorized; everything is jit-compatible and
 dtype-polymorphic (f64 for validation, f32/bf16 in production).
 """
 

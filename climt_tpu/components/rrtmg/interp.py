@@ -10,20 +10,20 @@ rrtmg_lw_taumol.f90 / rrtmg_sw_taumol.f90, the water-vapor continuum
 terms, the minor-absorber terms, and the Planck-fraction eta
 interpolation all have this shape).
 
-On TPU, dynamic row gathers do not vectorize: 8 gathers into a (585, 16)
-table cost ~13 ms at GCM shapes while the same contraction as a one-hot
-matmul on the MXU costs ~4 ms at HIGHEST precision with <=4e-7 relative
-error (tools/diag_gather_cost.py).  ``mix_rows`` therefore builds the
-combined sparse weight matrix W[z, c, r] = sum_t w_t * onehot(idx_t) and
-contracts it against the table in one dot, for float32/bfloat16 inputs.
-float64 inputs (the golden-parity validation mode, where MXU f64 would
-be emulated and slow) keep exact sequential row gathers.
+For float32/bfloat16 inputs ``mix_rows`` builds the combined sparse
+weight matrix W[z, c, r] = sum_t w_t * onehot(idx_t) and contracts it
+against the table in one dot, at the 'table' precision of
+ops/precision.py.  float64 inputs (the golden-parity validation mode)
+keep exact sequential row gathers.  Whether row gathers or the one-hot
+dot are faster on the GPU has not been measured.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ...ops.precision import dot_precision
 
 
 def mix_rows(table, terms):
@@ -52,15 +52,13 @@ def mix_rows(table, terms):
         t = w[..., None] * oh
         W = t if W is None else W + t
     nd = W.ndim
-    # HIGH (bf16x3 emulation, ~1e-6 rel) instead of HIGHEST (bf16x6,
-    # ~4e-7): halves the MXU passes of the taumol hot loop.  The f32
-    # fast path's accuracy budget is the fastpath-vs-f64 bound
-    # (tests/test_radiation_fastpath.py: fluxes atol 0.5 W/m2, heating
-    # atol 0.05 K/day, i.e. ~2e-3 relative) — three orders above this
-    # dot's rounding; f64 golden parity keeps exact gathers above.
+    # precision: ops/precision.py 'table'.  The f32 fast path's accuracy
+    # budget is the fastpath-vs-f64 bound (tests/test_radiation_fastpath.py:
+    # fluxes atol 0.5 W/m2, heating atol 0.05 K/day); f64 golden parity
+    # keeps exact gathers above.
     return jax.lax.dot_general(
         W, table.astype(W.dtype), (((nd - 1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGH)
+        precision=dot_precision('table'))
 
 
 def mix_rows_windowed(table, terms, window):
@@ -111,7 +109,7 @@ def mix_rows_windowed(table, terms, window):
             base)                                # (nz, window, ng)
     return jax.lax.dot_general(
         W, tbl_z.astype(W.dtype), (((2,), (1,)), ((0,), (0,))),
-        precision=jax.lax.Precision.HIGH)
+        precision=dot_precision('table'))
 
 
 def lin_rows(table, idx, frac, weight=None):

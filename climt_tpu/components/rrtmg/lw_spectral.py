@@ -1,6 +1,6 @@
 """RRTMG-LW 140-g-point correlated-k radiative transfer in JAX.
 
-TPU-native implementation of the reference's longwave scheme
+JAX implementation of the reference's longwave scheme
 (/root/reference/climt/_lib/rrtmg_lw/): the per-column Fortran loops become
 whole-grid vectorized gathers and lax.scans over layers.
 
@@ -51,6 +51,7 @@ import numpy as np
 from jax import lax
 
 from .interp import lin_rows, mix_rows, mix_rows_windowed
+from ...ops.precision import dot_precision
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), '..', '..', 'data')
 _SUPPORT = os.path.join(_DATA_DIR, 'rrtmg_lw_support.npz')
@@ -470,12 +471,12 @@ def taumol_lw(cs, wx, dtype, tables=None):
                 sc1 = jnp.where(trop, 0.0, speccomb_u1)
 
             # 8-term 2x2x2 (pressure, temperature, eta) interpolation as
-            # sparse-weight MXU contractions; the speccomb column
+            # sparse-weight dot contractions; the speccomb column
             # factors are folded into the term weights.  f32 splits the
             # regimes and contracts per-level table WINDOWS
             # (interp.mix_rows_windowed — at a fixed level jp spans <=2
             # of the 13/47 pressure blocks, so a 4-block window holds
-            # every nonzero-weight row at 3-12x less MXU/HBM work);
+            # every nonzero-weight row at 3-12x less dot and memory work);
             # f64 golden parity keeps the merged full-table path.
             use_window = dtype != jnp.float64
             terms = []
@@ -729,9 +730,25 @@ def _tbl_lookup(od, use_tables=True):
     return tau_tbl[itr], 1.0 - exp_tbl[itr], tfn_tbl[itr]
 
 
+def rtrn_impl(dtype, *, idrv=False, use_tables=True, per_g_cloud=False,
+              backend=None):
+    """Which LW flux sweep ``rtrn_lw`` runs: 'kernel' or 'plain'.
+
+    The Pallas kernel (pallas_rtrn.py) covers float32, analytic
+    transmittance, band clouds and no dF/dTs, and runs on the GPU only;
+    every other case takes the plain XLA sweep.  ``backend`` defaults to
+    ``jax.default_backend()``."""
+    import jax
+    backend = jax.default_backend() if backend is None else backend
+    eligible = (dtype == jnp.float32 and not idrv and not use_tables
+                and not per_g_cloud)
+    return 'kernel' if eligible and backend == 'gpu' else 'plain'
+
+
 def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
             cldfrac, taucld_band, pz, heatfac, idrv=False,
-            dplankbnd_dt=None, per_g_cloud=False, use_tables=True):
+            dplankbnd_dt=None, per_g_cloud=False, use_tables=True,
+            impl=None):
     """Random-overlap radiative transfer (rrtmg_lw_rtrn.f90:239-589).
 
     taug/fracs: (nz, ncol, 140); planklay (nz, ncol, 16);
@@ -741,6 +758,8 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     (the McICA path, rrtmg_lw_rtrnmc.f90: cldfrac is then per-g 0/1).
     pz: (nz+1, ncol) interface pressure (mb).  Returns fluxes on
     interfaces (nz+1, ncol) and heating rates (nz, ncol, K/day).
+    impl: 'plain', 'kernel', 'interpret' (the kernel in the Pallas
+    interpreter), or None for ``rtrn_impl``'s choice.
     """
     t = load_support()
     dtype = taug.dtype
@@ -764,19 +783,17 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     delwave = jnp.asarray(t['delwave'], dtype)
     fluxfac = np.pi * 2.0e4
 
-    # fast path: whole sweep fused in one Pallas kernel (VMEM-resident
-    # per-band slabs, no per-g HBM intermediates) — production f32
-    # analytic-transmittance band-cloud configuration only
-    from .fused_mix import _pallas_mode
-    mode = _pallas_mode()
-    if (mode != 'off' and not idrv and not use_tables and not per_g_cloud
-            and dtype == jnp.float32):
+    if impl is None:
+        impl = rtrn_impl(dtype, idrv=idrv, use_tables=use_tables,
+                         per_g_cloud=per_g_cloud)
+    if impl != 'plain':
         from .pallas_rtrn import rtrn_lw_fused
         dwave_g = delwave[ngb] * wtdiff * fluxfac
         totuflux, totdflux, totuclfl, totdclfl = rtrn_lw_fused(
             taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
             cldfrac, taucld_band, dwave_g,
-            interpret=(mode == 'interpret'))
+            ngb=tuple(int(b) for b in NGB), rec_6=rec_6,
+            interpret=(impl == 'interpret'))
         fnet = totuflux - totdflux
         fnetc = totuclfl - totdclfl
         dpz = pz[:-1] - pz[1:]
@@ -898,7 +915,8 @@ def rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
     dwave_g = delwave[ngb] * wtdiff * fluxfac       # (140,)
 
     def to_flux(r):
-        return jnp.einsum('lgc,g->lc', r, dwave_g)
+        return jnp.einsum('lgc,g->lc', r, dwave_g,
+                          precision=dot_precision('physics'))
 
     totuflux = to_flux(urad)
     totdflux = to_flux(drad_full)
@@ -962,7 +980,7 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                     tauaer, grav, avogad, cpdair, inflag=2, iceflag=1,
                     liqflag=1, idrv=False, per_g_cloud=False,
                     cldfrac_g=None, taucld_g=None, tables=None,
-                    use_tables=True):
+                    use_tables=True, sweep=None):
     """Full LW pipeline: inatm -> setcoef -> taumol -> cldprop -> rtrn.
 
     All profile arrays are (nz, ncol) bottom-up, plev/tlev (nz+1, ncol),
@@ -970,6 +988,7 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
     Mirrors the rrtmg_lw driver (rrtmg_lw_rad.nomcica.f90:439-560).
     When per_g_cloud=True, cldfrac_g/taucld_g (nz, ncol, 140) McICA
     subcolumns are used instead of cldfrac/taucld (rrtmg_lw_rad.f90).
+    sweep: ``rtrn_lw``'s ``impl`` (None: ``rtrn_impl`` decides).
 
     Returns (uflx, dflx, hr, uflxc, dflxc, hrc[, duflx_dt, duflxc_dt]):
     fluxes (nz+1, ncol) W/m^2, heating rates (nz, ncol) K/day.
@@ -999,7 +1018,8 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                        cs['plankbnd'], emis, pwvcm, cldfrac_g, taucld_g,
                        plev, heatfac, idrv=idrv,
                        dplankbnd_dt=cs.get('dplankbnd_dt'),
-                       per_g_cloud=True, use_tables=use_tables)
+                       per_g_cloud=True, use_tables=use_tables,
+                       impl=sweep)
 
     taucld_band = cldprop_lw(inflag, iceflag, liqflag, cldfrac,
                              taucld, ciwp, clwp, rei, rel, dtype)
@@ -1007,4 +1027,4 @@ def rrtmg_lw_fluxes(play, plev, tlay, tlev, tsfc, h2ovmr, o3vmr, co2vmr,
                    cs['plankbnd'], emis, pwvcm, cldfrac, taucld_band,
                    plev, heatfac, idrv=idrv,
                    dplankbnd_dt=cs.get('dplankbnd_dt'),
-                   use_tables=use_tables)
+                   use_tables=use_tables, impl=sweep)

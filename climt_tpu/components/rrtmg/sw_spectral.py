@@ -1,6 +1,6 @@
 """RRTMG-SW 112-g-point correlated-k radiative transfer in JAX.
 
-Faithful TPU-native reimplementation of the reference's shortwave scheme
+Faithful JAX reimplementation of the reference's shortwave scheme
 (/root/reference/climt/_lib/rrtmg_sw/): the per-column Fortran loops become
 whole-grid vectorized gathers and scans; the k-coefficient tables live as
 constant device arrays (climt_tpu/data/rrtmg_sw_kdist.npz, extracted by
@@ -40,6 +40,7 @@ import numpy as np
 from jax import lax
 
 from .interp import lin_rows, mix_rows, mix_rows_windowed
+from ...ops.precision import dot_precision
 
 _DATA = os.path.join(os.path.dirname(__file__), '..', '..', 'data',
                      'rrtmg_sw_kdist.npz')
@@ -318,7 +319,7 @@ def taumol_sw(cs, isolvar, svar_f, svar_s, svar_i,
                 speccomb = speccomb * jnp.where(trop, kscale, 1.0)
 
             # 8-term 2x2x2 (pressure, temperature, eta) interpolation as
-            # sparse-weight MXU contractions; speccomb (and band 23's
+            # sparse-weight dot contractions; speccomb (and band 23's
             # kscale) fold into the term weights.  f32 splits regimes
             # and contracts per-level table windows
             # (interp.mix_rows_windowed); f64 keeps the merged
@@ -479,10 +480,10 @@ def _exp_transmittance(tau, use_tables=True):
 
     use_tables=False computes ``exp(-tau)`` directly instead: the table
     only quantizes the exact exponential (it exists so the Fortran could
-    avoid transcendentals), and per-element gathers into a 10^4-entry
-    table are ~160x slower than the VPU exponential on TPU
-    (tools/diag_gather_cost.py) — the fast path is used by the fused GCM
-    and the benchmark, the table path by the f64 golden-parity tests.
+    avoid transcendentals) — the fast path is used by the fused GCM and
+    the benchmark, the table path by the f64 golden-parity tests.  Per
+    element, a gather into a 10^4-entry table against one exponential has
+    not been timed on the GPU.
     """
     ze1 = jnp.minimum(tau, 500.0)
     if not use_tables:
@@ -847,7 +848,8 @@ def _spcv_core(ztauc_d, zomcc_d, zgcc_d, ztauo_d, zomco_d, zgco_d, cf,
                            albp, albd)
 
     def total(f):
-        return jnp.einsum('lcg,cg->lc', f, incflx)[::-1]  # bottom-up
+        return jnp.einsum('lcg,cg->lc', f, incflx,
+                          precision=dot_precision('physics'))[::-1]
 
     if clear_only:
         fd = total(fd_c)
@@ -1098,9 +1100,11 @@ def ecmwf_aerosol_optics(ecaer, dtype):
     rsrpiza = jnp.asarray(t['aer_rsrpiza'], dtype)
     rsrasya = jnp.asarray(t['aer_rsrasya'], dtype)
     ec = jnp.moveaxis(ecaer, 0, -1)                  # (nz, ncol, naer)
-    taua = jnp.einsum('zca,ba->zcb', ec, rsrtaua)
-    zomga = jnp.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza)
-    zasya = jnp.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza * rsrasya)
+    prec = dot_precision('physics')
+    taua = jnp.einsum('zca,ba->zcb', ec, rsrtaua, precision=prec)
+    zomga = jnp.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza, precision=prec)
+    zasya = jnp.einsum('zca,ba->zcb', ec, rsrtaua * rsrpiza * rsrasya,
+                       precision=prec)
     asma = jnp.where(zomga != 0.0, zasya / jnp.where(zomga == 0, 1, zomga),
                      zasya)
     ssaa = jnp.where(taua != 0.0, zomga / jnp.where(taua == 0, 1, taua),

@@ -9,7 +9,7 @@ plus stability-consistent screen-level diagnostics (T/q at 2 m, wind at
 10 m) interpolated with the surface layer's own recovered
 Monin-Obukhov profile.
 
-TPU-native design: the reference's per-column Python loop becomes
+Vectorized design: the reference's per-column Python loop becomes
 whole-grid vectorized math; the process objects keep the same names and
 call contracts but operate on column arrays, and the subsurface
 implicit diffusion is one batched tridiagonal solve

@@ -14,7 +14,7 @@ time-split processes,
    and q with eddy diffusivities constant below the PBL top and
    Gaussian-tapered above.
 
-TPU-native design: the Fortran's per-column loops become whole-grid
+Vectorized design: the Fortran's per-column loops become whole-grid
 elementwise ops; the implicit PBL tridiagonal solve becomes two
 ``lax.scan`` sweeps (upward elimination, downward back-substitution) carrying
 all columns at once.  Level index 0 is the *lowest* layer (the reference

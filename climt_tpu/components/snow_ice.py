@@ -10,7 +10,7 @@ freezing Dirichlet condition, thicknesses are clamped non-negative (the
 excess energy routed into the ocean heat flux), albedos are
 configurable, and negative melt energy is clamped with a debug log.
 
-TPU-native design: the reference's per-column numba prange loop becomes
+Vectorized design: the reference's per-column numba prange loop becomes
 one batched tridiagonal solve over all columns (ops/tridiagonal.py);
 the per-column data-dependent branches (melting top boundary, the
 conditional cool-and-resolve pass) are evaluated as a second batched

@@ -11,7 +11,7 @@ sympl property system (see /root/reference/docs/interaction.rst and dims like
 under transposed/reversed states is tested at
 /root/reference/tests/test_components.py:216-250).
 
-TPU-first design note: all matching logic here is *host-side metadata work*
+Design note: all matching logic here is *host-side metadata work*
 resolved to transposes/reshapes/scales.  The compiled model path performs this
 resolution once at build time; per-step code exchanges raw arrays directly.
 """

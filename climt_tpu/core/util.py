@@ -6,7 +6,7 @@ Behavioral parity with /root/reference/climt/_core/util.py:
 - ``mass_to_volume_mixing_ratio`` (util.py:41-81).
 - ``calculate_q_sat`` / ``bolton_q_sat`` / ``bolton_dqsat_dT``: saturation
   specific humidity with above/below-freezing branches (util.py:141-172) —
-  branchless here via ``jnp.where`` so they vectorize on the VPU.
+  branchless here via ``jnp.where`` so they vectorize.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Fused, scan-based production models: dynamics + physics in one jit.
 
-This is the TPU execution path (SURVEY.md §7 design stance): marshalling
+This is the accelerator execution path (SURVEY.md §7 design stance): marshalling
 happens once at build time; the model loop is a single compiled
 ``lax.scan`` over the semi-implicit leapfrog step with physics evaluated
 inside the trace from the synthesized grid fields.

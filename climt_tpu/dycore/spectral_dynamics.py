@@ -20,7 +20,7 @@ Simmons 1975 for the semi-implicit treatment):
   the divergence terms of the continuity/thermodynamic equations) are
   linearized about an isothermal reference state and advanced implicitly:
   one precomputed (nz x nz) solve per total wavenumber n — batched small
-  matmuls, ideal MXU work;
+  matmuls;
 - everything in this module is pure jnp on arrays shaped (nz, nlat, nlon)
   (level index 0 = model top) or spectral (nz, M+1, N+1); the whole step is
   jit-compatible and is scanned over in the benchmark/production path.
@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.sht import SphericalHarmonicTransform
+from ..ops.precision import dot_precision
 
 
 class SpectralDycore:
@@ -412,24 +413,27 @@ class SpectralDycore:
     def _apply_matrix(self, mat, x):
         """(nz, nz) x (nz, M, N) spectral level-coupling product.
 
-        Real/imag split: complex dot_general does not lower on TPU and real
-        matmuls run on the MXU."""
-        re = jnp.einsum('kj,jmn->kmn', mat, x.real)
-        im = jnp.einsum('kj,jmn->kmn', mat, x.imag)
+        Real and imaginary parts are contracted separately, as real
+        matmuls."""
+        prec = dot_precision('spectral')
+        re = jnp.einsum('kj,jmn->kmn', mat, x.real, precision=prec)
+        im = jnp.einsum('kj,jmn->kmn', mat, x.imag, precision=prec)
         return jax.lax.complex(re, im)
 
     @staticmethod
     def _apply_batched_inverse(Minv, x):
         """(N+1, nz, nz) per-wavenumber solve applied to (nz, M, N)."""
-        re = jnp.einsum('nkj,jmn->kmn', Minv, x.real)
-        im = jnp.einsum('nkj,jmn->kmn', Minv, x.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('nkj,jmn->kmn', Minv, x.real, precision=prec)
+        im = jnp.einsum('nkj,jmn->kmn', Minv, x.imag, precision=prec)
         return jax.lax.complex(re, im)
 
     @staticmethod
     def _apply_vector(vec, x):
         """(nz,) . (nz, M, N) -> (M, N)."""
-        re = jnp.einsum('j,jmn->mn', vec, x.real)
-        im = jnp.einsum('j,jmn->mn', vec, x.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('j,jmn->mn', vec, x.real, precision=prec)
+        im = jnp.einsum('j,jmn->mn', vec, x.imag, precision=prec)
         return jax.lax.complex(re, im)
 
     def step(self, prev, now, phys=None, dt=None, physics_fn=None,

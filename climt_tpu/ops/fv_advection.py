@@ -2,7 +2,7 @@
 
 The reference's GFS dynamical core advects moisture/tracers in grid
 space (finite-volume/semi-Lagrangian; SURVEY.md §2.4, §3.4) while the
-dynamics stay spectral.  This module is the TPU-native equivalent: a
+dynamics stay spectral.  This module is the vectorized equivalent: a
 conservative flux-form van Leer (MUSCL, monotonized-central limiter)
 scheme in the (lambda, mu) coordinates of the Gaussian grid plus upwind
 vertical transport on the dycore's diagnosed interface mass flux,

@@ -3,15 +3,15 @@
 The reference's GFS dynamical core used SHTns + FFTW for its spectral
 transforms (ghost build refs at /root/reference/climt/_lib/Makefile:1-16; the
 dycore itself was split out of the tree, HISTORY.rst:5-8).  This module is
-the TPU-native equivalent: the Legendre transform is a batched matmul over
-latitude — exactly the shape the MXU wants — and the zonal transform is an
+the JAX equivalent: the Legendre transform is a batched matmul over
+latitude and the zonal transform is an
 RFFT, with all coefficient tensors precomputed once in float64 and cast to
 the compute dtype.
 
 Conventions:
 - Triangular truncation T: spectral coefficients a[m, n] for
   0 <= m <= T, m <= n <= T (dense (T+1, T+1) arrays with an upper-triangular
-  mask; the ~2x dense compute is cheaper on the MXU than packed layouts).
+  mask; the ~2x dense compute is cheaper than packed layouts).
 - Associated Legendre functions P̄_n^m(mu) normalized so that
   (1/2) ∫ P̄_n^m(mu)^2 dmu = 1 (CAM/GFS convention).
 - Grid fields are real (..., nlat, nlon); synthesis is
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.grid import gauss_legendre_nodes
+from .precision import dot_precision
 
 
 def _legendre_tensors(truncation, mu):
@@ -86,7 +87,7 @@ class SphericalHarmonicTransform:
         """``fft_impl``: 'fft' uses the backend FFT; 'matmul' evaluates the
         (truncated) zonal DFT as real matmuls — required under sharding on
         the CPU backend (whose FFT thunk rejects non-default layouts) and
-        often faster on the MXU for moderate nlon."""
+        an alternative to the FFT for moderate nlon."""
         self.fft_impl = fft_impl
         self._needs_dft_matrices = fft_impl == 'matmul'
         if truncation is None:
@@ -168,8 +169,9 @@ class SphericalHarmonicTransform:
         """(..., nlat, nlon) -> (..., nlat, M+1) complex Fourier coeffs."""
         if self.fft_impl == 'matmul':
             c, s, _, _ = self._dft_matrices()
-            re = jnp.einsum('...j,jm->...m', grid, c)
-            im = jnp.einsum('...j,jm->...m', grid, s)
+            prec = dot_precision('spectral')
+            re = jnp.einsum('...j,jm->...m', grid, c, precision=prec)
+            im = jnp.einsum('...j,jm->...m', grid, s, precision=prec)
             return jax.lax.complex(re, im)
         fm = jnp.fft.rfft(grid, axis=-1) / self.nlon
         return fm[..., :self.truncation + 1]
@@ -178,29 +180,38 @@ class SphericalHarmonicTransform:
         """(..., nlat, M+1) -> (..., nlat, nlon) real grid."""
         if self.fft_impl == 'matmul':
             _, _, ic, is_ = self._dft_matrices()
-            return (jnp.einsum('...m,mj->...j', fm.real, ic)
-                    - jnp.einsum('...m,mj->...j', fm.imag, is_))
+            prec = dot_precision('spectral')
+            return (jnp.einsum('...m,mj->...j', fm.real, ic,
+                               precision=prec)
+                    - jnp.einsum('...m,mj->...j', fm.imag, is_,
+                                 precision=prec))
         nfreq = self.nlon // 2 + 1
         pad = [(0, 0)] * (fm.ndim - 1) + [(0, nfreq - fm.shape[-1])]
         fm_full = jnp.pad(fm, pad)
         return jnp.fft.irfft(fm_full * self.nlon, n=self.nlon, axis=-1)
 
     # -- real-valued Legendre contractions ------------------------------------
-    # Complex dot_general does not lower well on TPU (and would not use the
-    # MXU); contract real and imaginary parts separately so every Legendre
-    # transform is a real batched matmul.
+    # Real and imaginary parts are contracted separately, so every
+    # Legendre transform is a real batched matmul (a complex dot_general
+    # would cost four real products and rides no fast library path).
     @staticmethod
     def _contract_analysis(tensor, fm):
         """einsum('mnl,...lm->...mn') with real tensor, complex fm."""
-        re = jnp.einsum('mnl,...lm->...mn', tensor, fm.real)
-        im = jnp.einsum('mnl,...lm->...mn', tensor, fm.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('mnl,...lm->...mn', tensor, fm.real,
+                        precision=prec)
+        im = jnp.einsum('mnl,...lm->...mn', tensor, fm.imag,
+                        precision=prec)
         return jax.lax.complex(re, im)
 
     @staticmethod
     def _contract_synthesis(tensor, spec):
         """einsum('mnl,...mn->...lm') with real tensor, complex spec."""
-        re = jnp.einsum('mnl,...mn->...lm', tensor, spec.real)
-        im = jnp.einsum('mnl,...mn->...lm', tensor, spec.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('mnl,...mn->...lm', tensor, spec.real,
+                        precision=prec)
+        im = jnp.einsum('mnl,...mn->...lm', tensor, spec.imag,
+                        precision=prec)
         return jax.lax.complex(re, im)
 
     # -- full transforms ------------------------------------------------------

@@ -26,17 +26,17 @@ Scheme (two-time-level, midpoint trajectories):
    dycore's diagnosed interface mass flux (keeps the vertical transport
    consistent between the two schemes).
 
-TPU mapping: each bilinear corner is ONE bulk flattened gather per
-field (indices precomputed on the VPU); there are 4 corner gathers per
+Array mapping: each bilinear corner is ONE bulk flattened gather per
+field (indices precomputed elementwise); there are 4 corner gathers per
 interpolation and 2 velocity interpolations per trajectory iteration.
-Gathers don't ride the MXU, but the SL operator runs once per tracer
+Gathers are memory-bound, but the SL operator runs once per tracer
 per step on (nz, nlat, nlon) fields — bandwidth-bound, not the step's
 critical path (the FV path's polar zonal substepping costs more at
 high resolution).
 
 Reference behavior: the reference has no in-tree SL code (the dycore
 was split out, HISTORY.rst:5-8); this implements the documented
-capability TPU-natively.
+capability with whole-grid array operations.
 """
 
 from __future__ import annotations

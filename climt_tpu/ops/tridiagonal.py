@@ -1,9 +1,9 @@
 """Batched tridiagonal (Thomas) solver.
 
 The reference's IceSheet builds a scipy sparse matrix and calls spsolve per
-column (/root/reference/climt/_components/surface_ice.py:346-395); on TPU the
+column (/root/reference/climt/_components/surface_ice.py:346-395); in JAX the
 idiomatic form is the Thomas algorithm as two ``lax.scan`` sweeps with the
-batch (column) axis vectorized on the VPU.  O(n) work, no data-dependent
+batch (column) axis vectorized.  O(n) work, no data-dependent
 shapes, differentiable.
 """
 

@@ -13,10 +13,9 @@ Collective volume per transform over an L-device 'lat' axis:
   all_to_all moves (L-1)/L of the Fourier tensor
   = (batch x nlat x ceil(M+1, L) x 16 bytes) per device pair direction —
   e.g. T85, nz=28: 28 x 128 x 88 complex64 ≈ 2.5 MB/device/transform,
-  riding ICI.  Compute per device drops by L for both the FFT (nlat/L
-  rows) and the Legendre matmuls (M/L block), and the spectral state
-  memory by L.  tools/scaling_model.py turns these volumes plus the
-  measured single-chip step into the scaling-efficiency estimate.
+  over NVLink between the GPUs of a host.  Compute per device drops by L
+  for both the FFT (nlat/L rows) and the Legendre matmuls (M/L block),
+  and the spectral state memory by L.
 
 ``DistributedSHT`` implements the FULL transform surface of
 ``ops.sht.SphericalHarmonicTransform`` (analyze/synthesize, derivative
@@ -36,7 +35,8 @@ the number of lat-devices; rows m >= truncation+1 are identically zero
 
 Multi-host: call ``climt_tpu.parallel.initialize_distributed()`` first
 (jax.distributed), then build the mesh over ``jax.devices()`` spanning
-all hosts; the all_to_all rides ICI within a slice and DCN across.
+all hosts; XLA hands the all_to_all to NCCL (NVLink within a host, the
+network across hosts).
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from ..ops.precision import dot_precision
 from ..ops.sht import SphericalHarmonicTransform
 
 
@@ -185,15 +186,17 @@ class DistributedSHT:
     def _contract_analysis(self, tensor_blocks, fm, idx):
         """einsum('mnl,zlm->zmn') with the device's tensor block."""
         t = tensor_blocks[idx]
-        re = jnp.einsum('mnl,zlm->zmn', t, fm.real)
-        im = jnp.einsum('mnl,zlm->zmn', t, fm.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('mnl,zlm->zmn', t, fm.real, precision=prec)
+        im = jnp.einsum('mnl,zlm->zmn', t, fm.imag, precision=prec)
         return lax.complex(re, im)
 
     def _contract_synthesis(self, tensor_blocks, spec, idx):
         """einsum('mnl,zmn->zlm') with the device's tensor block."""
         t = tensor_blocks[idx]
-        re = jnp.einsum('mnl,zmn->zlm', t, spec.real)
-        im = jnp.einsum('mnl,zmn->zlm', t, spec.imag)
+        prec = dot_precision('spectral')
+        re = jnp.einsum('mnl,zmn->zlm', t, spec.real, precision=prec)
+        im = jnp.einsum('mnl,zmn->zlm', t, spec.imag, precision=prec)
         return lax.complex(re, im)
 
     # -- shard_map bodies --------------------------------------------------

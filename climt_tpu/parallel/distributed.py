@@ -2,14 +2,14 @@
 
 The reference has no distributed computing at all ("climt does not yet
 support MPI", /root/reference/docs/configuration.rst:41); this is the
-TPU-native multi-host layer: one JAX process per host, XLA collectives
-over ICI within a slice and DCN across slices (no custom transport).
+multi-host layer: one JAX process per GPU host, XLA collectives through
+NCCL over NVLink within a host and the network across hosts (no custom
+transport).
 
 Typical multi-host entry:
 
     from climt_tpu.parallel import initialize_distributed, make_mesh
-    initialize_distributed()            # reads TPU env on Cloud TPU, or
-                                        # pass coordinator_address/rank
+    initialize_distributed('host0:1234', num_processes=2, process_id=rank)
     mesh = make_mesh()                  # spans jax.devices() (all hosts)
 
 after which the fused moist-GCM step runs under the mesh exactly as in
@@ -30,11 +30,11 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None, local_device_ids=None):
     """Initialize jax.distributed for a multi-host run (idempotent).
 
-    With no arguments, JAX auto-detects the Cloud TPU environment
-    (coordinator from the TPU metadata); on other clusters pass the
-    coordinator address plus this process's rank and the world size.
-    Safe to call in single-process runs: a failure to detect a cluster
-    degrades to single-process with a logged advisory.
+    Pass the coordinator address (``host:port``, reachable from every
+    host), the world size and this process's rank; any failure then
+    raises.  With no arguments JAX tries to detect a cluster from its
+    environment (e.g. SLURM); when it finds none the run continues
+    single-process and a warning is logged.
     """
     global _initialized
     import jax
@@ -50,11 +50,14 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
         kwargs.update(local_device_ids=local_device_ids)
     try:
         jax.distributed.initialize(**kwargs)
-        _initialized = True
-    except Exception as err:  # single-process fallback
-        logger.info(
-            'jax.distributed.initialize unavailable (%s); running '
+    except Exception as err:
+        if coordinator_address is not None:
+            raise
+        logger.warning(
+            'jax.distributed.initialize found no cluster (%s); running '
             'single-process', err)
+        return jax.process_count()
+    _initialized = True
     return jax.process_count()
 
 

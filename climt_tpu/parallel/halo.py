@@ -3,7 +3,7 @@
 The FV transport's meridional pass (ops/fv_advection.py) needs each
 latitude row's immediate north/south neighbor.  On a lat-sharded mesh
 that neighbor can live on the adjacent device: this module exchanges
-exactly the boundary row over ICI with a collective-permute — the
+exactly the boundary row with a collective-permute — the
 grid-stencil communication pattern SURVEY.md §2.5 prescribes — and
 zero-fills the global boundary rows (the poles are closed faces, so the
 zero IS the physical boundary condition, matching the single-device

@@ -1,4 +1,4 @@
-"""Tracing/profiling hooks (SURVEY.md §5: the reference has none; the TPU
+"""Tracing/profiling hooks (SURVEY.md §5: the reference has none; the
 build plan calls for jax.profiler traces with named phase scopes)."""
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 as single-device execution.
 
 The reference has no distributed tests (SURVEY.md §4.7: "no distributed
-tests, no multi-node harness"); this suite is the TPU-native addition the
+tests, no multi-node harness"); this suite is the multi-device addition the
 survey prescribes — sharded-vs-unsharded equivalence on a forced 8-device
 CPU mesh (tests/conftest.py sets --xla_force_host_platform_device_count=8).
 """

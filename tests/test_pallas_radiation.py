@@ -1,36 +1,18 @@
-"""Pallas radiation kernels vs their XLA reference paths.
+"""The LW flux-sweep kernel (components/rrtmg/pallas_rtrn.py) against the
+plain XLA sweep, and the choice between them.
 
-The production TPU fast path routes the LW flux sweep through the fused
-Pallas kernel (components/rrtmg/pallas_rtrn.py) and exposes a fused
-table-mix kernel (components/rrtmg/fused_mix.py).  On CPU the kernels
-run in the Pallas interpreter (CLIMT_TPU_PALLAS=interpret), which
-executes the same kernel logic the Mosaic compiler lowers on TPU, so
-these tests pin the kernels' numerics against the pure-XLA formulations
-used by the f64 golden-parity path.
+On the CPU the kernel runs in the Pallas interpreter, which executes the
+same kernel logic the Triton route compiles for the GPU.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from climt_tpu.components.rrtmg import lw_spectral as L
-from climt_tpu.components.rrtmg.fused_mix import fused_mix_rows
-from climt_tpu.components.rrtmg.interp import mix_rows
 from climt_tpu.components.rrtmg.pallas_rtrn import rtrn_lw_fused
 
-
-def test_fused_mix_rows_matches_xla():
-    rng = np.random.RandomState(0)
-    R, ng, T, nz, nc = 117, 12, 9, 7, 33
-    tbl = jnp.asarray(rng.rand(R, ng), jnp.float32)
-    idx = jnp.asarray(rng.randint(0, R, (T, nz, nc)), jnp.int32)
-    w = jnp.asarray(rng.randn(T, nz, nc), jnp.float32)
-    ref = mix_rows(tbl, list(zip(idx, w)))
-    out = fused_mix_rows(tbl, idx, w, interpret=True)
-    assert out.shape == ref.shape
-    err = np.abs(np.asarray(out) - np.asarray(ref)).max()
-    assert err < 1e-6 * np.abs(np.asarray(ref)).max()
+HEATFAC = 9.80665 * 8.64e4 / (1004.64 * 1e2)
 
 
 def _rtrn_inputs(nz=9, ncol=40):
@@ -52,13 +34,15 @@ def _rtrn_inputs(nz=9, ncol=40):
             cldfrac, taucld_band, pz)
 
 
-def test_rtrn_fused_matches_xla():
+@pytest.mark.parametrize('nz', [7, 28])
+def test_rtrn_fused_matches_xla(nz):
+    """Kernel fluxes against the plain sweep; ncol=40 is not a multiple
+    of the column block, and 140 g-points leave a part-filled g block."""
     (taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
-     cldfrac, taucld_band, pz) = _rtrn_inputs()
-    heatfac = 9.80665 * 8.64e4 / (1004.64 * 1e2)
+     cldfrac, taucld_band, pz) = _rtrn_inputs(nz=nz)
     ref = L.rtrn_lw(taug, fracs, planklay, planklev, plankbnd, semiss,
-                    pwvcm, cldfrac, taucld_band, pz, heatfac,
-                    use_tables=False)
+                    pwvcm, cldfrac, taucld_band, pz, HEATFAC,
+                    use_tables=False, impl='plain')
     totu_r, totd_r, _, totuc_r, totdc_r, _ = ref
 
     t = L.load_support()
@@ -77,29 +61,44 @@ def test_rtrn_fused_matches_xla():
 
     totu, totd, totuc, totdc = rtrn_lw_fused(
         taug, fracs, planklay, planklev, plankbnd, semiss, secdiff,
-        cldfrac, taucld_band, dwave_g, interpret=True)
+        cldfrac, taucld_band, dwave_g,
+        ngb=tuple(int(b) for b in L.NGB), rec_6=float(t['rec_6'][0]),
+        block_c=16, interpret=True)
     for a, b in ((totu, totu_r), (totd, totd_r), (totuc, totuc_r),
                  (totdc, totdc_r)):
+        assert a.shape == b.shape == (nz + 1, 40)
         scale = np.abs(np.asarray(b)).max()
         assert np.abs(np.asarray(a) - np.asarray(b)).max() < 2e-6 * scale
 
 
-def test_rtrn_dispatch_routes_through_kernel(monkeypatch):
-    """rtrn_lw's production f32 path must dispatch to the fused kernel
-    (CLIMT_TPU_PALLAS=interpret on CPU) and agree with the XLA path."""
+def test_rtrn_dispatch_routes_through_kernel():
+    """rtrn_lw with the kernel (interpreted) agrees with the plain sweep
+    in every output, heating rates included."""
     (taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
      cldfrac, taucld_band, pz) = _rtrn_inputs(nz=7, ncol=24)
-    heatfac = 9.80665 * 8.64e4 / (1004.64 * 1e2)
     args = (taug, fracs, planklay, planklev, plankbnd, semiss, pwvcm,
-            cldfrac, taucld_band, pz, heatfac)
-
-    monkeypatch.setenv('CLIMT_TPU_PALLAS', 'off')
-    ref = L.rtrn_lw(*args, use_tables=False)
-
-    monkeypatch.setenv('CLIMT_TPU_PALLAS', 'interpret')
-    out = L.rtrn_lw(*args, use_tables=False)
-
+            cldfrac, taucld_band, pz, HEATFAC)
+    ref = L.rtrn_lw(*args, use_tables=False, impl='plain')
+    out = L.rtrn_lw(*args, use_tables=False, impl='interpret')
     assert len(out) == len(ref)
     for a, b in zip(out, ref):
         scale = max(np.abs(np.asarray(b)).max(), 1e-6)
         assert np.abs(np.asarray(a) - np.asarray(b)).max() < 5e-6 * scale
+
+
+@pytest.mark.parametrize('backend, dtype, kw, expected', [
+    ('gpu', jnp.float32, dict(use_tables=False), 'kernel'),
+    ('gpu', jnp.float64, dict(use_tables=False), 'plain'),
+    ('gpu', jnp.float32, dict(use_tables=True), 'plain'),
+    ('gpu', jnp.float32, dict(use_tables=False, per_g_cloud=True), 'plain'),
+    ('gpu', jnp.float32, dict(use_tables=False, idrv=True), 'plain'),
+    ('cpu', jnp.float32, dict(use_tables=False), 'plain'),
+])
+def test_rtrn_impl_choice(backend, dtype, kw, expected):
+    assert L.rtrn_impl(dtype, backend=backend, **kw) == expected
+
+
+def test_rtrn_impl_default_backend_here():
+    """Under the test suite's CPU backend the default choice is the plain
+    sweep: the interpreter is never picked implicitly."""
+    assert L.rtrn_impl(jnp.float32, use_tables=False) == 'plain'

@@ -4,11 +4,11 @@ the f64 golden-parity path.
 The golden tests (test_golden_components.py) validate the f64 path:
 exact table gathers in taumol and the Fortran Pade transmittance tables.
 The production GCM and the benchmark run a different code path — float32,
-one-hot MXU contraction in taumol (components/rrtmg/interp.py) and the
+one-hot dot contraction in taumol (components/rrtmg/interp.py) and the
 analytic exponential in the solvers (use_tables=False) — which these
 tests pin against the f64 reference on the same physical columns, plus a
 regression test for the f32 exp underflow that produced NaNs through
-1/zem1 in reftra (caught on TPU, round 4).
+1/zem1 in reftra.
 """
 
 import jax.numpy as jnp

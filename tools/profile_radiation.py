@@ -1,4 +1,4 @@
-"""Per-stage timing of the correlated-k radiation pipeline on TPU.
+"""Per-stage timing of the correlated-k radiation pipeline on the GPU.
 
 Times setcoef/taumol/rtrn (LW) and setcoef/taumol/spcvrt (SW)
 separately, plus the fused drivers, so optimization work targets the

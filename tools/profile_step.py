@@ -1,7 +1,7 @@
 """Phase-by-phase timing of the flagship bench configurations.
 
 Prints one line per phase (compile and steady-state times separately) so
-bench.py regressions can be attributed.  Run on the real TPU:
+bench.py regressions can be attributed.  Run on the GPU:
 
     python tools/profile_step.py [--quick]
 """
@@ -70,9 +70,9 @@ def main():
     # ---- standalone radiation ------------------------------------------
     import bench
     t0 = time.perf_counter()
-    rad_fn, rad_ncol = bench.build_radiation_bench()
-    compiled = rad_fn.lower().compile()
-    rate = bench.measure_radiation_compiled(compiled, rad_ncol)
+    rad_fn, rad_inputs = bench.build_radiation_bench()
+    compiled = rad_fn.lower(rad_inputs).compile()
+    rate = bench.measure_radiation_compiled(compiled, rad_inputs)
     log('radiation (60 lev, 8192 col) incl compile: {:.2f}s total, '
         '{:.3g} columns/s steady'.format(time.perf_counter() - t0, rate))
 
